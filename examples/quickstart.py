@@ -4,7 +4,7 @@ Runs a small end-to-end experiment (plan -> act -> update-GP) and, if
 matplotlib is available, saves a picture of the predicted safety tube over the
 safe/state polytopes next to the realized trajectory.
 
-    python examples/quickstart.py            # TPU if available, else default
+    python examples/quickstart.py            # GPU if available, else CPU
     JAX_PLATFORMS=cpu python examples/quickstart.py
 """
 

@@ -8,7 +8,7 @@
 // torch — SURVEY.md §4.1) with the reference's own native layer (LAPACK /
 // CasADi C++ — SURVEY.md §2.10) replaced by first-party code. It is also the
 // fp64 gold standard behind the "f64-equivalent tolerance" Cholesky gate
-// (BASELINE.md): the TPU f32 kernels are validated against these values.
+// (BASELINE.md): the f32 device code is validated against these values.
 //
 // Self-contained: no BLAS/LAPACK/Eigen; small-n dense routines only (n <= a
 // few hundred in tests). Exported with a C ABI for ctypes.

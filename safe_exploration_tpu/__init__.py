@@ -1,6 +1,6 @@
-"""safe_exploration_tpu — a TPU-native safe model-based RL / safe-MPC framework.
+"""safe_exploration_tpu — a safe model-based RL / safe-MPC framework in JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of the reference library
+A ground-up JAX/XLA rebuild of the capabilities of the reference library
 ``befelix/safe-exploration`` (Koller, Berkenkamp, Turchetta, Krause — "Learning-based
 Model Predictive Control for Safe Exploration", CDC 2018 / arXiv:1906.12189).
 
@@ -22,18 +22,16 @@ __version__ = "0.1.0"
 
 # --- numerics policy: f32-accurate matmuls ---------------------------------
 #
-# On TPU, jax's DEFAULT matmul precision feeds bf16 operands into the MXU
-# (~8 mantissa bits). This library's SAFETY math runs through matmuls — RBF
-# Gram distances, the solve-free posterior-variance quadratic forms
-# (kzz - kv K^-1 kv), ellipsoid affine images H Q H^T — and bf16 there
-# silently corrupts predictive variances (observed: 256-lane batched
-# episodes on v5e dropped from feasibility 1.0 to 0.05 purely from tube
-# inflation by variance noise; zero violations only because the fallback
-# chain caught it). The tubes are a CORRECTNESS guarantee, so f32-accurate
-# matmuls are the package default. Perf cost is small here: the solver is
-# op-count-bound, not MXU-FLOP-bound, and the large-N contractions stay
-# within real-time budgets. Opt out (e.g. for throughput experiments on
-# non-safety paths) with SAFE_EXPLORATION_TPU_MATMUL_PRECISION=default.
+# On an NVIDIA GPU, jax's DEFAULT matmul precision lets float32 products run
+# on the tensor cores in TF32 (10-bit mantissa). This library's SAFETY math
+# runs through matmuls — RBF Gram distances, the solve-free posterior-variance
+# quadratic forms (kzz - kv K^-1 kv), ellipsoid affine images H Q H^T — and
+# reduced-precision products there silently corrupt predictive variances and
+# inflate the tubes (chip_smoke.py checks the f32 refit against f64 at a
+# bound TF32 would exceed). The tubes are a CORRECTNESS guarantee, so
+# f32-accurate matmuls are the package default; their cost on the GPU is not
+# measured yet. Opt out (e.g. for throughput experiments on non-safety paths)
+# with SAFE_EXPLORATION_TPU_MATMUL_PRECISION=default.
 import os as _os
 
 import jax as _jax

@@ -5,7 +5,7 @@ Parity target: reference ``environments.py::Environment`` ABC (SURVEY.md §2.7) 
 ``linearize_discretize`` (discrete-time prior (a, b)), polytopic safe/state
 constraint sets, normalization fields.
 
-TPU-first re-design: an environment is a STATIC dynamics function plus a pytree
+Functional re-design: an environment is a STATIC dynamics function plus a pytree
 ``EnvSpec`` of physical/safety parameters. Everything is pure: ``env_step`` takes
 an explicit PRNG key, integrates one control interval with fixed-step RK4 (inside
 ``lax.scan``-able callers) and adds process noise — replacing the reference's
@@ -19,9 +19,9 @@ from typing import Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from safe_exploration_tpu.ops.linalg import expm_discretize
+from safe_exploration_tpu.utils import struct
 
 __all__ = ["EnvSpec", "Env", "env_reset", "env_step", "linearize_discretize",
            "rk4_step", "normalize_state", "unnormalize_state",

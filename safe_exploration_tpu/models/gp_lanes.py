@@ -5,8 +5,8 @@ WHY. ``runtime/batch.py`` runs B independent online-learning episodes where
 every lane owns an EVOLVING GP. Its storage is the vmap-style stacked pytree
 (leading batch dim), which forces the whole per-step pipeline — SafeMPC solve,
 posterior predicts, incremental appends — through the vmapped portable path
-that the round-3 TPU profile showed is LAYOUT-bound (tiny trailing dims at
-1.5-2% vector-lane utilization; see solvers/sqp_lanes.py module docstring).
+whose tiny trailing dims make every op small (see solvers/sqp_lanes.py
+module docstring).
 This module stores the per-lane model BATCH-LAST instead:
 
   * buffers   x (n_max, d_in, B), y (n_max, e, B) — per-lane contents;
@@ -46,10 +46,10 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from safe_exploration_tpu.models import gp as gp_mod
 from safe_exploration_tpu.models.ssm import GPSSM
+from safe_exploration_tpu.utils import struct
 
 __all__ = [
     "LaneGP",

@@ -14,8 +14,8 @@ marginal likelihood is well-posed. Params are plain dicts (pytrees), one per out
 dimension.
 
 Gram construction is pure batched arithmetic — XLA maps the pairwise-distance and
-matmul forms straight onto the MXU; the large-N path additionally has a Pallas
-blocked kernel (ops/pallas) and a sharded path (parallel/).
+matmul forms onto its matmul kernels; the large-N path additionally has a sharded
+path (parallel/).
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ __all__ = [
 def _sq_dists(x1: jax.Array, x2: jax.Array) -> jax.Array:
     """Pairwise squared distances, (n1, d) x (n2, d) -> (n1, n2).
 
-    Uses the ||a||^2 + ||b||^2 - 2ab matmul form (MXU-friendly); clamped at 0 to
+    Uses the ||a||^2 + ||b||^2 - 2ab matmul form; clamped at 0 to
     kill negative round-off.
     """
     n1 = jnp.sum(x1 * x1, axis=-1, keepdims=True)

@@ -5,15 +5,15 @@ variant) — a dropout MLP whose predictive distribution comes from S stochastic
 forward passes (Gal & Ghahramani's dropout-as-Bayes view), used as a drop-in
 ``CemSSM`` backend for the CEM planner (SURVEY.md §2.3, §2.6).
 
-TPU-first design:
+Design:
   * The S dropout masks are DERIVED from a stored PRNG key (refreshable via
     ``mc_resample``), so prediction is a pure deterministic function of the
     model state — it jits, vmaps (CEM samples / episode batches) and
     differentiates (``jacfwd`` state-Jacobians for reachability) exactly like
     the GP. The reference draws fresh torch masks per call and cannot be
     batched deterministically.
-  * All S stochastic passes run as ONE vmapped MLP — a batched matmul stack on
-    the MXU, not S sequential evaluations.
+  * All S stochastic passes run as ONE vmapped MLP — a batched matmul stack,
+    not S sequential evaluations.
   * Training is fixed-budget Adam on MSE + L2 (the dropout-Bayes regularizer),
     jit-able inside episodic loops (same contract as models/gp.gp_fit).
 """
@@ -23,7 +23,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+
+from safe_exploration_tpu.utils import struct
 
 __all__ = [
     "McDropoutSSM",

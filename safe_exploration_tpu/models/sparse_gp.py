@@ -12,8 +12,8 @@ the Titsias/VFE (SGPR) formulation:
 Cost: O(N m^2) to build factors, O(m^2) per predict — N = 10k training points
 with m = 128-512 inducing points stays real-time inside the MPC loop.
 
-TPU-first: the only O(N) contractions are ``Kuf Kuf^T`` and ``Kuf y`` — pure
-matmuls that XLA tiles onto the MXU, and exactly the terms that shard over a
+Accelerator-first: the only O(N) contractions are ``Kuf Kuf^T`` and ``Kuf y``
+— pure matmuls, and exactly the terms that shard over a
 device mesh with a single psum each (see parallel/sharded_gp.py). Masked padding
 works as in the dense GP: masked columns of Kuf are zeroed, so they contribute
 nothing to either contraction.
@@ -23,9 +23,9 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from safe_exploration_tpu.models.kernels import gram, init_kernel_params, kernel_diag
+from safe_exploration_tpu.utils import struct
 
 __all__ = [
     "SparseGP",
@@ -95,7 +95,7 @@ def _factors_from_whitened(
     sigma_n^2 and factoring it DIRECTLY breaks down in f32 at BASELINE-cfg-4
     scale — cond(Sigma) ~ (N sf^2/sigma_n^2) / jitter blows past 1e8 for
     N=10k low-noise data, the Cholesky pivot goes negative and every factor
-    NaNs (observed on both CPU-f32 and TPU). B's eigenvalues are >= 1, so
+    NaNs (observed in CPU f32). B's eigenvalues are >= 1, so
     chol(B) never sees a negative pivot and its relative error stays bounded
     regardless of N — the standard GPy/GPflow-stable SGPR formulation.
 

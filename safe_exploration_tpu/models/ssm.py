@@ -15,11 +15,11 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from safe_exploration_tpu.models import gp as gp_mod
 from safe_exploration_tpu.models.gp import GP
 from safe_exploration_tpu.models.kernels import init_kernel_params
+from safe_exploration_tpu.utils import struct
 
 __all__ = ["GPSSM", "ssm_predict", "ssm_predict_full_cov", "ssm_predict_jac",
            "ssm_predict_grads", "ssm_update", "ssm_append_point", "ssm_fit",
@@ -299,7 +299,7 @@ def ssm_bucketed(ssm):
     evaluation inside the solver then contracts over the bucket, not the full
     padded capacity. Runners keep appending into the FULL model and re-derive
     the view per episode; crossing a bucket boundary recompiles once
-    (standard TPU shape bucketing — O(log n_max) compiles over a whole run).
+    (standard shape bucketing — O(log n_max) compiles over a whole run).
     Non-GP families pass through unchanged.
     """
     if isinstance(ssm, GPSSM):

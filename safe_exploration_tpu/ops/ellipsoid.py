@@ -9,8 +9,9 @@ its CasADi mirror ``utils_ellipsoid_casadi.py`` (SURVEY.md §2.1) — here a sin
 pure-JAX implementation serves the eager, jitted, differentiated and vmapped paths.
 
 All functions are shape-polymorphic in the state dimension n and contain no Python
-control flow on traced values, so they compile to straight-line XLA (fused VPU ops —
-these matrices are tiny, n <= ~12; the MXU work lives in the GP kernels).
+control flow on traced values, so they compile to straight-line XLA (fused
+elementwise ops — these matrices are tiny, n <= ~12; the matmul work lives in the
+GP kernels).
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
-"""Float-float (double-word f32) arithmetic — fp64-equivalent accumulation on
-f32-only TPU hardware.
+"""Float-float (double-word f32) arithmetic — fp64-equivalent accumulation
+from f32 operations only.
 
-TPU v5e has no f64 ALU (SURVEY.md §7 "numerics policy" / BASELINE north star
-"bitwise-stable Cholesky at fp64-equivalent tolerance"). A float-float number
+The mode was built for hardware without an f64 unit (SURVEY.md §7 "numerics
+policy" / BASELINE north star "bitwise-stable Cholesky at fp64-equivalent
+tolerance"); ROADMAP C2 replaces it with native f64. A float-float number
 represents a value as an unevaluated sum ``hi + lo`` with |lo| <= ulp(hi)/2,
 giving ~49 mantissa bits — f64-class precision — out of pairs of f32s, using
 only error-free transformations (EFTs):
@@ -11,9 +12,10 @@ only error-free transformations (EFTs):
   * split     (Dekker):  x            = x_hi + x_lo, 12-bit halves
   * two_prod  (Dekker):  a * b        = p + err   exactly (via split products)
 
-All ops are branch-free elementwise VPU arithmetic — they jit, vmap, and work
-inside Pallas kernels and lax loops. XLA must not re-associate these sums:
-the module relies on jax's default strict float semantics (no fast-math).
+All ops are branch-free elementwise arithmetic — they jit, vmap, and work
+inside lax loops. XLA must not re-associate these sums: the module relies on
+jax's default strict float semantics (no fast-math). chip_smoke.py checks the
+Cholesky against f64 on the GPU.
 
 Used by :func:`safe_exploration_tpu.ops.ff.cholesky_ff` — the high-precision
 factorization mode validated against the f64 oracle in tests/test_ff.py.
@@ -127,13 +129,12 @@ def cholesky_ff(a: jax.Array) -> FF:
     Every intermediate (Schur-complement entries, divisions, square roots) is
     carried as a double-word pair, so the factor is accurate to ~2^-45 relative
     — fp64-equivalent for the condition numbers of jittered Gram matrices —
-    while touching only f32 hardware ops. O(n^2) rank-1 VPU updates per step
-    (no MXU: EFT products cannot ride the systolic array's internal rounding).
+    while touching only f32 hardware ops. O(n^2) elementwise rank-1 updates
+    per step (no matmul units: EFT products need every rounding explicit).
 
     Returns the factor as an :class:`FF` pair; ``ff_to_f32`` rounds to f32.
-    Cost ~10x a plain f32 factorization at the same n — the price of the
-    BASELINE north star's "fp64-equivalent tolerance" mode; use it for the
-    correctness-critical refits, not the vmapped solver hot loop.
+    It is the BASELINE north star's "fp64-equivalent tolerance" mode; use it
+    for the correctness-critical refits, not the vmapped solver hot loop.
     """
     n = a.shape[-1]
     rows = jnp.arange(n)
@@ -165,8 +166,8 @@ def trsm_ff(l: FF, b, *, transpose: bool = False) -> FF:
     """Double-word triangular solve ``L x = b`` (or ``L^T x = b``).
 
     Forward/back substitution with every intermediate carried as an FF pair
-    — O(n^2) VPU work, used by the ``precision="ff"`` GP refit mode
-    (fp64-equivalent posterior factors on f32-only hardware).
+    — O(n^2) elementwise work, used by the ``precision="ff"`` GP refit mode
+    (fp64-equivalent posterior factors from f32 operations).
     """
     n = l.hi.shape[0]
     bf = b if isinstance(b, FF) else ff(jnp.asarray(b, jnp.float32))
@@ -207,7 +208,7 @@ def gp_factors_ff(k: jax.Array, y: jax.Array):
     END, so the only f32 error left is the final storage rounding (~1e-7
     relative) instead of the factorization's eps*k(K) accumulation. This is
     the ``precision="ff"`` refit mode (BASELINE north star: bitwise-stable
-    Cholesky at fp64-equivalent tolerance on f32-only TPUs).
+    Cholesky at fp64-equivalent tolerance).
     """
     lff = cholesky_ff(k)
     z = trsm_ff(lff, y)

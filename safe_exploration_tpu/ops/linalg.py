@@ -3,7 +3,7 @@
 Replaces the reference's LAPACK/scipy call sites (SURVEY.md §2.10):
   * ``scipy.linalg.solve_discrete_are`` (used by ``utils.py::dlqr``) -> a
     structure-preserving doubling algorithm (SDA) with a fixed iteration count,
-    which is jit-able, vmap-able and TPU-friendly (pure matmuls on the MXU).
+    which is jit-able, vmap-able and accelerator-friendly (pure matmuls).
   * exact discretization of the Jacobian linearization (``environments.py::
     linearize_discretize``) -> augmented matrix exponential.
   * Cholesky-based PSD solves. (Incremental GP factor updates — bordered

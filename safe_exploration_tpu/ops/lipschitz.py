@@ -38,12 +38,12 @@ def max_eig_psd_product(m: jax.Array, iters: int = 30) -> jax.Array:
 
     M is similar to the symmetric PSD matrix ``Q^{1/2} B Q^{1/2}``, so its
     spectrum is real and nonnegative. This sits on the reachability hot path:
-    the SQP forward-differentiates it per stage per Newton iteration, and the
-    TPU profile of the batched solver showed a plain 30-step power iteration
-    (the reference's ``matrix_norm_2`` approach, SURVEY.md §2.2) costing ~45%
-    of total solve time — 30 SEQUENTIAL tiny matvecs, each dragging a tangent
-    batch along under jvp. Two replacements, both static-shaped and
-    differentiable:
+    the SQP forward-differentiates it per stage per Newton iteration, and a
+    plain 30-step power iteration (the reference's ``matrix_norm_2``
+    approach, SURVEY.md §2.2) is 30 SEQUENTIAL tiny matvecs, each dragging a
+    tangent batch along under jvp — a large share of solve time in the
+    profile of the accelerator the solver was first tuned on. Two
+    replacements, both static-shaped and differentiable:
 
       * n == 2: the characteristic-polynomial CLOSED FORM
         lambda_max = (tr + sqrt(tr^2 - 4 det)) / 2 (real spectrum) — a

@@ -1,5 +1,5 @@
-"""Multi-chip scale-out (mesh/sharding). The reference is single-process CPU
-(SURVEY.md §2.9); these are the TPU-native parallelism deliverables."""
+"""Multi-device scale-out (mesh/sharding). The reference is single-process CPU
+(SURVEY.md §2.9); these are the framework's parallelism deliverables."""
 
 from safe_exploration_tpu.parallel.mesh import (
     EPISODE_AXIS,

@@ -1,17 +1,19 @@
-"""Device-mesh scale-out: batched safe-MPC / episodes sharded over chips.
+"""Device-mesh scale-out: batched safe-MPC / episodes sharded over devices.
 
 The reference has NO parallelism of any kind (single-process CPU — SURVEY.md
-§2.9). The TPU-native scale-out axes are:
+§2.9). The scale-out axes are:
 
   * **episodes/problems (DP)**: vmap across independent safe-MPC problem
     instances or episodes, sharded over the mesh with ``NamedSharding`` — XLA
     SPMD partitions the whole program; no collectives needed in the forward
-    rollout (embarrassingly parallel), so ICI stays idle and per-chip throughput
-    is preserved. This is BASELINE config 3 (256 vmapped episodes) and the
-    1000+ solves/sec north star.
+    rollout (embarrassingly parallel), so the interconnect stays idle. This
+    is BASELINE config 3 (256 vmapped episodes).
   * **large-N GP (a TP analog)**: shard the N-dimension of the inducing-point
-    Gram/cross-covariance work (models/sparse_gp.py) with ``psum`` reductions
-    over ICI — see parallel/sharded_gp.py.
+    Gram/cross-covariance work (models/sparse_gp.py) with one ``psum``
+    reduction per refit — see parallel/sharded_gp.py.
+
+Meshes are 1-D and follow the algorithm; on GPUs joined all to all (NVLink)
+every device reaches every other at the same rate.
 """
 
 from __future__ import annotations

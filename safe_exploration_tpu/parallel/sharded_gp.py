@@ -6,10 +6,10 @@ formulation (models/sparse_gp.py) every O(N) contraction is one of
     Sigma_data = Kuf Kuf^T      (m, m)   and    r = Kuf y / sigma^2   (m,)
 
 — plain matmuls over the data axis. Sharding the TRAINING DATA over the device
-mesh makes each chip compute its local (m, m) / (m,) partial product and a
-single ``psum`` over ICI reduces them; the m x m Cholesky and the O(m^2)
-predictions stay replicated (m <= 512 — trivially small next to the N-axis
-work). Communication volume per refit: n_out * (m^2 + m) floats — independent
+mesh makes each device compute its local (m, m) / (m,) partial product and a
+single ``psum`` over the interconnect reduces them; the m x m Cholesky and the
+O(m^2) predictions stay replicated (m <= 512 — trivially small next to the
+N-axis work). Communication volume per refit: n_out * (m^2 + m) floats — independent
 of N, so scaling efficiency approaches 1 as N grows.
 
 The reference has no distributed anything (SURVEY.md §2.9); its GPy sparse GP

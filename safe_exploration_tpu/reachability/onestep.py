@@ -121,7 +121,7 @@ def multistep_reachability(
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
     """Fold the one-step map over a horizon with per-stage controls.
 
-    The horizon is a ``lax.scan`` — the TPU-native replacement for the
+    The horizon is a ``lax.scan`` — the compiled replacement for the
     reference's symbolically-unrolled CasADi loop (SURVEY.md §3.1) and its
     Python loop in numpy/torch.
 
@@ -155,8 +155,8 @@ def multistep_reachability(
 
     # unroll: the horizon is short (T <= ~10) and the body is many small ops;
     # unrolling lets XLA fuse across stages instead of executing the rolled
-    # body's thunks T times (the batched SQP is thunk-count-bound, not FLOP-
-    # bound — measured 100x under both rooflines with rolled scans)
+    # body's thunks T times (the batched SQP is a chain of many small ops,
+    # bound by their count rather than by FLOPs)
     (_, _), (ps, qs, vars_) = jax.lax.scan(
         body, (p1, q1), (k_rest, kfb_rest), unroll=True
     )

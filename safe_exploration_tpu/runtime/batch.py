@@ -138,12 +138,12 @@ def run_batched_episodes_lanes(
     mesh=None,
 ):
     """Lane-major batched online-learning episodes — the same semantics as
-    :func:`run_batched_episodes` through the TPU-layout-native backend.
+    :func:`run_batched_episodes` through the lane-major (batch-last) backend.
 
-    The vmapped runner above is LAYOUT-bound on TPU: the leading batch dim
-    forces XLA to tile the tiny trailing dims of every solver intermediate at
-    1.5-2% vector-lane utilization (solvers/sqp_lanes.py module docstring).
-    This runner instead threads the whole per-step pipeline batch-LAST:
+    The vmapped runner above puts the batch dim in front of the tiny
+    trailing dims of every solver intermediate (solvers/sqp_lanes.py module
+    docstring). This runner instead threads the whole per-step pipeline
+    batch-LAST:
 
       * planning: ``get_action_batch`` (the batched SafeMPC state machine
         over the lane-major SQP, solvers/safempc.make_safempc_batch);

@@ -74,7 +74,7 @@ def _load_orbax(path: str, template: Any | None) -> Any:
 
 
 def save_checkpoint(path: str, state: Any, *, backend: str = "pickle") -> str:
-    """Serialize a pytree (flax struct dataclasses included) to ``path``.
+    """Serialize a pytree (pytree dataclasses included) to ``path``.
 
     Static metadata (e.g. GP kernel-type tuples) lives in the treedef and is
     pickled alongside the leaf arrays. ``backend="orbax"`` writes a directory

@@ -49,15 +49,11 @@ class ExperimentConfig:
     # scenarios) | "batch" (mesh-sharded parallel episodes, BASELINE cfg 3)
     task: str = "episodic"
     batch_lanes: int = 256           # parallel episode lanes for task="batch"
-    # ONLINE-learning episode runner for task="batch": "auto" (= "vmapped" —
-    # the measured winner: the per-step lane GP append/predict on batch-last
-    # per-lane buffers is VPU/bandwidth-bound and the vmapped runner measures
-    # ~1.9x faster end-to-end at the benched regime, bench.py
-    # batch_episode_steps_per_sec[_vmapped]: 454.6 vs 241.6 steps/s at equal
-    # feasibility) | "vmapped" | "lanes" (the lane-major per-lane-buffer
-    # runner — still the only path for pre-stacked LaneGPSSM models, and the
-    # batched SOLVE inside both runners always rides the lane SQP backend
-    # where supported)
+    # ONLINE-learning episode runner for task="batch": "auto" (= "vmapped")
+    # | "vmapped" | "lanes" (the lane-major per-lane-buffer runner — the only
+    # path for pre-stacked LaneGPSSM models). The batched SOLVE inside both
+    # runners rides the lane SQP backend where supported. Which runner is
+    # faster on the GPU is not measured yet.
     batch_backend: str = "auto"
     env: str = "pendulum"
     solver: str = "cem"              # "cem" | "sqp"
@@ -84,7 +80,7 @@ class ExperimentConfig:
     # come out O(1) regardless of per-dimension state scales
     normalize_inputs: bool = True
     # GP refit arithmetic: "f32" | "ff" (double-word float-float factors —
-    # fp64-equivalent refits on f32-only TPUs, ~10x refit cost; ops/ff.py)
+    # fp64-equivalent refits in f32 arithmetic; ops/ff.py)
     precision: str = "f32"
 
     # safe-MPC
@@ -105,18 +101,10 @@ class ExperimentConfig:
     cem_elites: int = 16
     cem_iterations: int = 6
     # single-instance CEM planner backend: "portable" (vmap over samples) |
-    # "lanes" (solvers/cem_lanes with B=1 — the M samples fill the TPU
-    # vector lanes; same algorithm, different noise stream). The BATCHED
+    # "lanes" (solvers/cem_lanes with B=1 — the M samples form the lane
+    # axis; same algorithm, different noise stream). The BATCHED
     # entries always auto-dispatch to the lane backend where supported.
     cem_backend: str = "portable"
-    # GP posterior impl for the lane CEM scorer: "auto" (= XLA — the fused
-    # Pallas posterior kernel measures slower than XLA's fused chain on v5e,
-    # bench.py cem_solves_per_sec A/B, so it stays undispatched library
-    # code) | "xla" | "pallas" (force, TPU only) | "fused" (the whole-
-    # rollout Pallas scorer, ops/pallas/cem_score — tube + margins + cost in
-    # one launch on the hot sampling path; A/B rows in bench.py decide
-    # whether "auto" ever routes here) — solvers/cem.CemConfig
-    cem_gp_impl: str = "auto"
 
     # SQP knobs
     sqp_outer: int = 12
@@ -155,11 +143,6 @@ class ExperimentConfig:
             raise ValueError(
                 f"config '{self.name}': unknown perf_trajectory "
                 f"{self.perf_trajectory!r} (taylor|mean_equivalent)"
-            )
-        if self.cem_gp_impl not in ("auto", "xla", "pallas", "fused"):
-            raise ValueError(
-                f"config '{self.name}': unknown cem_gp_impl "
-                f"{self.cem_gp_impl!r} (auto|xla|pallas|fused)"
             )
 
 
@@ -239,7 +222,6 @@ def build_experiment(cfg: ExperimentConfig, dtype=jnp.float32) -> dict:
             n_perf=cfg.n_perf,
             r_shared=cfg.r_shared,
             perf_method=cfg.perf_trajectory,
-            gp_impl=cfg.cem_gp_impl,
         )
         warm_len = cem_warm_len(cem_cfg)
 
@@ -340,9 +322,9 @@ def build_experiment(cfg: ExperimentConfig, dtype=jnp.float32) -> dict:
         )
 
         # Batched entry: the lane-major backend (solvers/sqp_lanes — the
-        # TPU-layout-native solve, 4.6-5.7x the vmapped path on v5e) when the
-        # configuration supports it, transparently falling back to vmapping
-        # the portable planner otherwise. Same per-lane results contract.
+        # batch-last solve) when the configuration supports it, transparently
+        # falling back to vmapping the portable planner otherwise. Same
+        # per-lane results contract.
         from safe_exploration_tpu.solvers.sqp_lanes import (
             lanes_supported,
             make_sqp_lane_solver,

@@ -5,7 +5,7 @@ collect initial safe samples, then for each episode run ``n_steps`` of
 ``safempc.get_action`` / ``env.step`` collecting residual transitions, append
 them to the SSM and optionally re-fit hyperparameters; log per-episode metrics.
 
-TPU-first structure: the whole per-episode rollout is ONE ``lax.scan`` jitted
+Compiled structure: the whole per-episode rollout is ONE ``lax.scan`` jitted
 end-to-end (planner solves included), so an episode is a single device program;
 the episode loop stays in Python only to interleave logging and (optional)
 hyperopt. ``rollout_episode`` is also the unit that gets vmapped/sharded across

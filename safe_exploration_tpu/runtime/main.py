@@ -129,11 +129,10 @@ def run_experiment(cfg, *, out_dir: str | None = None, dtype=None,
             k3, (lanes, spec.n_s), dtype
         )
         # ONLINE-episode runner selection (cfg.batch_backend): "auto" routes
-        # to the vmapped runner — the measured winner for the per-step
-        # append/predict loop (bench.py batch_episode A/B: ~1.9x) — while
-        # "lanes" forces the lane-major per-lane-buffer runner when the
-        # configuration supports it. The batched SOLVE inside either runner
-        # still rides the lane-major SQP where supported.
+        # to the vmapped runner, while "lanes" forces the lane-major
+        # per-lane-buffer runner when the configuration supports it. The
+        # batched SOLVE inside either runner still rides the lane-major SQP
+        # where supported.
         lanes_ok = (
             exp["get_action_batch"] is not None
             and exp["lane_batch_supported"] is not None
@@ -335,7 +334,7 @@ def main(argv: list[str] | None = None) -> int:
                         help="named config (see runtime/config.py registry)")
     parser.add_argument("--list", action="store_true", help="list configs")
     parser.add_argument("--platform", default=None,
-                        help="force jax platform (cpu/tpu)")
+                        help="force jax platform (cpu/gpu)")
     parser.add_argument("--x64", action="store_true", help="enable float64")
     parser.add_argument("--out", default=None, help="output directory")
     parser.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
@@ -361,6 +360,10 @@ def main(argv: list[str] | None = None) -> int:
     if args.debug_nans:
         jax.config.update("jax_debug_nans", True)
     import jax.numpy as jnp
+
+    from safe_exploration_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from safe_exploration_tpu.runtime.config import CONFIGS
 

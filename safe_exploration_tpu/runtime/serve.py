@@ -22,7 +22,7 @@ executable:
 Parity: the reference's production surface is ``SimpleSafeMPC.get_action`` +
 ``update_model`` called from a Python loop around CasADi/IPOPT
 (``safempc_simple.py``, SURVEY.md §2.5/§3.3) — per-step solver latency there
-is whatever IPOPT takes that step. This is the TPU-native counterpart: fixed
+is whatever IPOPT takes that step. This is the compiled counterpart: fixed
 shapes, fixed budgets, one executable per bucket, microsecond-stable dispatch.
 """
 

@@ -57,16 +57,6 @@ class CemConfig(NamedTuple):
     # n_perf = 0 puts the objective on the safety tube itself.
     n_perf: int = 0
     r_shared: int = 1
-    # GP posterior implementation for the LANE scorer (solvers/cem_lanes):
-    # "auto" = XLA — the honest-dispatch default: the fused Pallas VMEM
-    # kernel (ops/pallas/gp_predict) measures SLOWER than XLA's fused chain
-    # at scorer scale on v5e (op-level 42.6 vs 34.8 us at n=64 x 16k lanes;
-    # dispatch-level CEM 37.6k vs 40.6k solves/s — bench.py
-    # pallas/xla_gp_predict + cem_solves_per_sec[_xla_gp] rows), so like the
-    # other library kernels it stays benched but undispatched. "pallas"
-    # forces the fused kernel (forward-only scoring paths only — it has no
-    # AD rules); the portable cem_plan ignores this knob.
-    gp_impl: str = "auto"
     perf_method: str = "taylor"  # "taylor" | "mean_equivalent"
 
 

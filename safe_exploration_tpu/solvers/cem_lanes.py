@@ -1,14 +1,14 @@
 """Lane-major constrained CEM planner — the sampling-based solver on the
-TPU-layout-native backend.
+batch-last backend.
 
 WHY. The portable CEM (solvers/cem.py) scores its M control-sequence samples
 with ``vmap(score_one)``: every tube intermediate carries a leading samples
-dim and XLA:TPU tiles the tiny trailing dims (2x2 ellipsoid blocks, n_u-wide
-controls) at 1.5-2% vector-lane utilization — exactly the layout bound that
-motivated the lane-major SQP (solvers/sqp_lanes.py module docstring). Here the
-SAMPLE x INSTANCE product IS the lane axis: scoring M sequences for B problem
-instances runs ONE lane-major tube rollout of width L = M*B, so the GP
-contractions are (n, L) MXU matmuls and all ellipsoid algebra is lane-tiled.
+dim in front of tiny trailing dims (2x2 ellipsoid blocks, n_u-wide controls)
+— the layout the lane-major SQP avoids (solvers/sqp_lanes.py module
+docstring). Here the SAMPLE x INSTANCE product IS the lane axis: scoring M
+sequences for B problem instances runs ONE lane-major tube rollout of width
+L = M*B, so the GP contractions are (n, L) matmuls and all ellipsoid algebra
+runs elementwise over the wide lane axis.
 The iteration machinery (per-lane elites via ``take_along_axis`` over the
 sample axis, smoothed refits, best-ever archive) stays (n_var, B).
 
@@ -45,7 +45,6 @@ from safe_exploration_tpu.solvers.sqp_lanes import (
     _gp_of,
     _rollout_y_lanes,
     _wants_sigma,
-    gp_pallas_supported,
 )
 
 __all__ = ["cem_lanes_supported", "cem_plan_lanes", "make_cem_lane_solver"]
@@ -127,46 +126,13 @@ def cem_plan_lanes(
     tube_cfg = _TubeCfg(n_safe=t_len, c_safety=c_safety, n_perf=cfg.n_perf,
                         perf_method=cfg.perf_method)
     want_sigma = _wants_sigma(cost_kind, cfg.n_perf)
-    # scoring is forward-only (no AD through the tube), so the fused Pallas
-    # posterior kernel is ELIGIBLE here — but the measured A/B says XLA's
-    # fused chain wins at scorer scale on v5e (bench.py cem_solves_per_sec
-    # vs _xla_gp: 37.6k vs 40.6k solves/s), so "auto" resolves to XLA and
-    # the kernel stays library code (same honest-dispatch policy as
-    # ops/pallas/{gram,cholesky,trsm}); "pallas" forces it where supported.
-    impl = cfg.gp_impl
-    # "fused": the whole-rollout Pallas scorer (ops/pallas/cem_score — tube +
-    # margins + cost in ONE kernel launch per evaluation) on the HOT wide
-    # scoring path; the final y-producing pass stays XLA. Falls back outside
-    # the supported envelope (n_s==2, all-RBF, n_perf==0, Σ-free stock
-    # costs, f32, TPU). Measured A/B (bench.py cem_score_*_us +
-    # cem_solves_per_sec_fused): op-level 199.5 vs 204.3 us, dispatch-level
-    # within run-to-run noise — parity, so "auto" stays XLA.
-    use_fused = False
-    if impl == "fused":
-        from safe_exploration_tpu.ops.pallas.cem_score import (
-            cem_score_supported,
-        )
-
-        use_fused = (
-            cem_score_supported(ssm, n_s, cost_kind, cfg.n_perf)
-            and dtype == jnp.float32 and jax.default_backend() == "tpu"
-        )
-        impl = "xla"
-    if impl == "auto":
-        impl = "xla"
-    elif impl == "pallas" and not (
-        gp_pallas_supported(ssm) and dtype == jnp.float32
-        and jax.default_backend() == "tpu"
-    ):
-        impl = "xla"
-
     def make_score(x0_cols):
         """Penalized scorer over lanes of width x0_cols[0].size."""
         x0_rows = [x0_cols[i] for i in range(n_s)]
 
         def score(u_flat):
             y = _rollout_y_lanes(ssm, u_flat, x0_rows, k_fb, a, b,
-                                 tube_cfg, bmat, r, n_u, impl=impl,
+                                 tube_cfg, bmat, r, n_u,
                                  want_sigma=want_sigma)
             g = _dist_lanes(y, t_len, n_s, h_mat_obs, h_obs,
                             h_mat_safe, h_safe)
@@ -184,22 +150,6 @@ def cem_plan_lanes(
     score_wide = make_score(x0_wide)
     score_b = make_score(x0s.T)
 
-    if use_fused:
-        from safe_exploration_tpu.ops.pallas.cem_score import (
-            tube_score_lanes_pallas,
-        )
-
-        def scores_wide(u_wide):
-            c, v = tube_score_lanes_pallas(
-                ssm, u_wide, x0_wide, k_fb, a, b, bmat,
-                h_mat_obs, h_obs, h_mat_safe, h_safe,
-                c_safety, t_len, cost_kind, cost_args,
-            )
-            return c + cfg.penalty * v
-    else:
-        def scores_wide(u_wide):
-            return score_wide(u_wide)[0]
-
     mean0 = (
         jnp.zeros((n_var, bsz), dtype) if warm is None
         else jnp.moveaxis(warm.reshape(bsz, n_var), 0, -1)
@@ -214,9 +164,9 @@ def cem_plan_lanes(
         samples = jnp.clip(mean[None] + std[None] * eps, lo[None], hi[None])
         # always include the distribution mean itself (elite retention)
         samples = samples.at[0].set(jnp.clip(mean, lo, hi))
-        scores = scores_wide(
+        scores = score_wide(
             jnp.moveaxis(samples, 0, 1).reshape(n_var, m * bsz)
-        ).reshape(m, bsz)
+        )[0].reshape(m, bsz)
         # per-lane elites over the sample axis (M is small: one argsort)
         elite_idx = jnp.argsort(scores, axis=0)[: cfg.n_elites]  # (k, B)
         elites = jnp.take_along_axis(

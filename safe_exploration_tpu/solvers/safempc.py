@@ -20,12 +20,12 @@ from typing import Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from safe_exploration_tpu.envs.base import Env, linearize_discretize
 from safe_exploration_tpu.models.ssm import GPSSM
 from safe_exploration_tpu.ops.linalg import dlqr
 from safe_exploration_tpu.reachability.onestep import multistep_reachability
+from safe_exploration_tpu.utils import struct
 
 __all__ = ["SafeMPCState", "SafeMPCConfig", "make_safempc"]
 

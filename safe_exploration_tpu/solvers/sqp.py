@@ -12,7 +12,7 @@ where ``tube`` is the full multistep ellipsoid reachability (GP posterior + mean
 Jacobians + Lipschitz remainders) — the reference builds this graph symbolically
 in CasADi once and hands it to IPOPT/MUMPS per control step (SURVEY.md §3.3).
 
-TPU-native design (SURVEY.md §7 hard-part #1): an augmented-Lagrangian method
+Compiled design (SURVEY.md §7 hard-part #1): an augmented-Lagrangian method
 (Rockafellar inequality form) with damped projected-Newton inner iterations and a
 FIXED iteration budget:
 
@@ -20,7 +20,8 @@ FIXED iteration budget:
     reachability rollout, including second derivatives of the GP posterior) comes
     from jax.grad / jax.hessian — no hand-built KKT graph;
   * the decision vector is tiny (T * n_u <= ~20), so the Newton solve is a dense
-    Cholesky — MXU-trivial — and thousands of problem instances vmap side by side
+    Cholesky — trivial work — and thousands of problem instances vmap side by
+    side
     (the 1000+ solves/sec north star; IPOPT can only solve one at a time);
   * control bounds are handled by projection inside the Newton line search;
   * NO data-dependent control flow: multiplier updates, penalty growth and line
@@ -50,9 +51,9 @@ class SqpConfig(NamedTuple):
     c_safety: float = 2.5
     n_outer: int = 12          # augmented-Lagrangian (multiplier) updates
     n_inner: int = 6           # damped Newton steps per outer iteration
-    # penalty schedule tuned on-TPU (see PROGRESS notes): mu0=50/growth=2.5
-    # converges ~20x more of the cold-start pendulum H=5 problems than the
-    # textbook mu0=10/1.6 at identical cost per solve
+    # penalty schedule: mu0=50/growth=2.5 converges ~20x more of the
+    # cold-start pendulum H=5 problems than the textbook mu0=10/1.6 at
+    # identical cost per solve
     mu0: float = 50.0          # initial penalty
     mu_growth: float = 2.5     # geometric penalty growth per outer iteration
     newton_damping: float = 1e-6
@@ -98,17 +99,18 @@ class SqpConfig(NamedTuple):
     # Newton curvature model: "gn" computes the AL Hessian by Gauss-Newton
     # through the rollout outputs y — ONE jacfwd of the rollout per step plus
     # exact small-space curvature of cost/constraints in y (only the rollout
-    # map's own second derivative is dropped) — measured ~2.5x faster than
-    # "exact" (jax.hessian of the AL) at equal convergence on TPU v5e.
+    # map's own second derivative is dropped) — cheaper than "exact"
+    # (jax.hessian of the AL) at equal convergence; the ratio on the GPU is
+    # not measured yet.
     hessian: str = "gn"
     # Line-search model (GN path only): "linearized" scores the backtracking
     # candidates on the LINEARIZED rollout y + Jy (u' - u) — the Jacobian the
     # step just computed — instead of re-rolling the tube per candidate
-    # (3 full rollouts per Newton step under "exact"). Measured on TPU v5e
-    # (batch 512, 10x3 budget): +11% throughput (4713 vs 4248 solves/s) but
-    # cold-start feasibility drops 0.875 -> 0.836 — the linearized acceptance
-    # misjudges steps near active-set switches. Default stays "exact"; the
-    # knob exists for throughput-over-convergence deployments.
+    # (3 full rollouts per Newton step under "exact"). At batch 512 and a
+    # 10x3 budget it costs cold-start feasibility (0.875 -> 0.836): the
+    # linearized acceptance misjudges steps near active-set switches. Default
+    # stays "exact"; the knob exists for throughput-over-convergence
+    # deployments.
     linesearch: str = "exact"  # "exact" | "linearized"
 
 
@@ -116,9 +118,8 @@ def _solve_spd_unrolled(h: jax.Array, rhs: jax.Array) -> jax.Array:
     """Solve the tiny SPD Newton system h d = rhs by a fully UNROLLED
     Cholesky + two substitutions (n_var <= ~20 scalars).
 
-    The TPU profile of the batched solver showed `jnp.linalg.cholesky` +
-    triangular solves lowering to LAPACK-style custom-calls that cost ~13% of
-    total solve time at n_var = 5 (two per Newton step, x30 per solve) —
+    `jnp.linalg.cholesky` + triangular solves lower to library custom-calls
+    (two per Newton step, x30 per solve) whose cost at n_var = 5 is the
     kernel-launch floor, not FLOPs. Unrolling emits pure vectorized scalar
     arithmetic that XLA fuses into the surrounding step; each "scalar" is a
     (batch,)-vector under vmap. Breakdown (h not SPD) surfaces as NaN in d,
@@ -161,7 +162,7 @@ def _solve_spd_unrolled(h: jax.Array, rhs: jax.Array) -> jax.Array:
 
 
 # above this size the O(n^3) unrolled-graph size outweighs the custom-call
-# launch overhead it avoids; measured crossover is well past any SafeMPC
+# launch overhead it avoids; the crossover lies well past any SafeMPC
 # decision vector (n_var = warm_len * n_u + optional dK block)
 _UNROLL_SOLVE_MAX_N = 24
 
@@ -485,8 +486,8 @@ def solve_al_nlp_gn(
     d2F/Gy are derivatives of TINY y-space functions (y ~ 40-90 numbers) —
     negligible next to the rollout. Only d2y/du2 contracted with the
     multipliers is dropped (classical GN); Levenberg damping covers it.
-    Measured on TPU v5e: ~2.5x the throughput of the exact-Hessian path at
-    equal feasibility on the pendulum H=5 batch.
+    Cheaper per step than the exact-Hessian path at equal feasibility on the
+    pendulum H=5 batch (the GPU ratio is not measured yet).
     """
     dtype = u0.dtype
     n_var = u0.shape[0]
@@ -531,8 +532,7 @@ def solve_al_nlp_gn(
         eye = jnp.eye(n_var, dtype=dtype)
 
         # unrolled tiny-SPD solves (see _solve_spd_unrolled): fused vector
-        # arithmetic instead of two LAPACK-style custom-calls (~13% of the
-        # batched solve in the TPU profile)
+        # arithmetic instead of two library custom-calls
         hs = 0.5 * (h + h.T)
         d0 = _newton_solve(hs + damp * eye, -grad)
         d1 = _newton_solve(hs + diag_scale * eye, -grad)

@@ -1,28 +1,25 @@
-"""Lane-major batched SafeMPC solver — the TPU layout-native SQP backend.
+"""Lane-major batched SafeMPC solver — the batch-last SQP backend.
 
 WHY THIS FILE EXISTS. The portable solver (solvers/sqp.py) is batched with
-``jax.vmap``, which places the batch dimension FIRST in every intermediate.
-XLA:TPU then tiles the trailing (tiny) dims of shapes like f32[512,3,2,2]
-onto the (8, 128) vector registers: a 2x2 ellipsoid block occupies a 2x128
-tile, wasting ~64x of the lanes, and a (512, 3) tensor runs at 3/128 lane
-utilization. The TPU profile of a 512-lane solve shows ~23k such ops at
-~2 us each — the batched solver is LAYOUT-bound, not FLOP-bound (throughput
-grew only 12% from batch 512 to 4096). ``vmap(in_axes=-1)`` does not help:
-batching rules normalize the batch dim per primitive (measured identical).
+``jax.vmap``, which places the batch dimension FIRST in every intermediate,
+in front of tiny trailing dims (shapes like f32[512,3,2,2]): the batched
+solve becomes tens of thousands of small ops whose layout, not their FLOPs,
+sets the cost on a vector machine. ``vmap(in_axes=-1)`` does not help:
+batching rules normalize the batch dim per primitive. The design was made
+for the accelerator the solver was first tuned on; whether it still beats
+the vmapped form on the H100 is not measured yet (bench.py keeps both).
 
 This backend instead writes the whole solve BATCH-LAST by construction:
 
-  * every per-lane scalar is a ``(B,)`` array — fully lane-tiled;
+  * every per-lane scalar is a ``(B,)`` array;
   * tiny-matrix algebra (ellipsoids, closed-loop maps, Newton systems) is
     unrolled over indices, exactly like sqp.py's ``_solve_spd_unrolled``;
-  * GP contractions run as ``(n, B)`` matmuls — MXU work with full lanes;
+  * GP contractions run as ``(n, B)`` matmuls;
   * the Gauss-Newton machinery comes from ``jax.linearize`` + basis-tangent
     jvps, so AD never reintroduces a leading batch dim (tangent/cotangent
     shapes mirror the primal ``(..., B)`` shapes).
 
-A representative 5-stage tube chain measures **8.5x faster** in this form
-than the vmapped form on TPU v5e (chain-differenced, see bench.py). The
-backend covers the production cold/warm solve configuration (GP-SSM over
+The backend covers the production cold/warm solve configuration (GP-SSM over
 the full kernel menu, GN Hessian, exact line search, fixed feedback gains;
 with or without a joint performance trajectory) and falls back to the
 portable path otherwise (opt_k_fb, exact Hessian, non-GP models); parity
@@ -89,60 +86,13 @@ def _gp_of(ssm):
     return ssm.sgp if isinstance(ssm, SparseGPSSM) else ssm.gp
 
 
-def gp_pallas_supported(ssm) -> bool:
-    """Whether the fused Pallas posterior kernel
-    (ops/pallas/gp_predict.gp_predict_lanes_pallas) covers this model:
-    shared exact or inducing-point posterior, all-RBF kernel menu, f32
-    factors. Per-lane LaneGPSSM models keep the XLA form (their buffers are
-    batch-last per lane, a different contraction)."""
-    if isinstance(ssm, LaneGPSSM) or not isinstance(ssm, (GPSSM, SparseGPSSM)):
-        return False
-    gp = _gp_of(ssm)
-    return (
-        all(kt == "rbf" for kt in gp.kern_types)
-        and getattr(gp, "precision", "f32") == "f32"
-    )
-
-
-def _gp_predict_lanes_pallas(ssm, z, *, want_jac: bool, interpret=False):
-    """The Pallas-fused counterpart of :func:`_gp_predict_lanes` (RBF menu;
-    see gp_pallas_supported). Pre-folds the validity mask into the posterior
-    weights — zeroed rows/cols contribute exactly 0 to every contraction, so
-    no in-kernel mask is needed — and applies the same z_scale chain rule.
-    FORWARD-ONLY: no AD rules; only sampling-based (CEM) scoring paths may
-    dispatch here."""
-    from safe_exploration_tpu.ops.pallas.gp_predict import (
-        gp_predict_lanes_pallas,
-    )
-
-    gp = _gp_of(ssm)
-    sparse = isinstance(ssm, SparseGPSSM)
-    xr = gp.z if sparse else gp.x
-    w_mean = gp.alpha if sparse else gp.beta
-    w_var = gp.vmat if sparse else gp.kinv
-    if not sparse:
-        w_mean = w_mean * gp.mask[None, :]
-        w_var = w_var * (gp.mask[None, :, None] * gp.mask[None, None, :])
-    zz = z if ssm.z_scale is None else z / ssm.z_scale[:, None]
-    log_ls = jnp.stack([p["log_lengthscales"] for p in gp.params])
-    log_sf = jnp.stack([jnp.asarray(p["log_sf"]) for p in gp.params])
-    out = gp_predict_lanes_pallas(
-        xr, w_mean, w_var, log_ls, log_sf, zz, want_jac=want_jac,
-        interpret=interpret,
-    )
-    if want_jac and ssm.z_scale is not None:
-        mu, var, jac = out
-        return mu, var, jac / ssm.z_scale[None, :, None]
-    return out
-
-
-def _gp_predict_lanes(ssm, z: jax.Array, *, want_jac: bool, impl="xla"):
+def _gp_predict_lanes(ssm, z: jax.Array, *, want_jac: bool):
     """Posterior mean/var (+ closed-form mean Jacobian) at B query lanes.
 
     ``z``: (d_in, B) RAW state-action inputs (lane-last). Mirrors
     models/gp._predict_dim + gp_predict_mean_jac (incl. the conditioning-
     aware variance floor) and models/ssm.ssm_predict_jac's z_scale chain
-    rule, with every contraction shaped (n, B) — MXU-tiled matmuls.
+    rule, with every contraction shaped (n, B) — plain matmuls.
 
     Returns (mu (e, B), var (e, B)[, jac (e, d_in, B)]).
 
@@ -157,13 +107,7 @@ def _gp_predict_lanes(ssm, z: jax.Array, *, want_jac: bool, impl="xla"):
     precomputed ``vmat`` and no mask is needed (inducing rows are all
     active) — parity with sparse_gp_predict_mean_jac pinned in
     tests/test_sqp_lanes_sparse.py.
-
-    ``impl="pallas"`` routes to the fused VMEM kernel (forward-only — the
-    lane CEM's scoring path; the SQP differentiates through this function
-    and stays on the XLA form).
     """
-    if impl == "pallas":
-        return _gp_predict_lanes_pallas(ssm, z, want_jac=want_jac)
     if isinstance(ssm, LaneGPSSM):
         return lane_predict(ssm, z, want_jac=want_jac)
     sparse = isinstance(ssm, SparseGPSSM)
@@ -205,7 +149,7 @@ def _gp_predict_lanes(ssm, z: jax.Array, *, want_jac: bool, impl="xla"):
 
 
 def _d2_shared(params, x, zz):
-    """ARD squared distances (n, B) in the MXU-friendly matmul form."""
+    """ARD squared distances (n, B) in the matmul form."""
     ls = jnp.exp(params["log_lengthscales"])
     xs = x / ls[None, :]                                   # (n, d_in)
     zs = zz / ls[:, None]                                  # (d_in, B)
@@ -304,7 +248,7 @@ def _sum_two_ellipsoids_q(q1, q2):
              for j in range(n)] for i in range(n)]
 
 
-def _rollout_lanes(ssm, u_flat, x0, k_fb, a, b, cfg, bmat, impl="xla"):
+def _rollout_lanes(ssm, u_flat, x0, k_fb, a, b, cfg, bmat):
     """Lane tube rollout: u_flat (n_var, B), x0 (n_s, B) ->
     (p_traj, q_traj, var_traj) as lists over stages of lane structures.
 
@@ -328,7 +272,7 @@ def _rollout_lanes(ssm, u_flat, x0, k_fb, a, b, cfg, bmat, impl="xla"):
     # stage 0: point step (onestep_reachability_point)
     kff = kff_at(0)
     z = jnp.stack(list(x0) + kff)                          # (d_in, B)
-    mu, var = _gp_predict_lanes(ssm, z, want_jac=False, impl=impl)
+    mu, var = _gp_predict_lanes(ssm, z, want_jac=False)
     p = [
         sum(a_rows[i][j] * x0[j] for j in range(n_s))
         + sum(b_rows[i][k] * kff[k] for k in range(n_u))
@@ -345,7 +289,7 @@ def _rollout_lanes(ssm, u_flat, x0, k_fb, a, b, cfg, bmat, impl="xla"):
     for t in range(1, t_len):
         kff = kff_at(t)
         z = jnp.stack(list(p) + kff)
-        mu, var, jac = _gp_predict_lanes(ssm, z, want_jac=True, impl=impl)
+        mu, var, jac = _gp_predict_lanes(ssm, z, want_jac=True)
         p_next = [
             sum(a_rows[i][j] * p[j] for j in range(n_s))
             + sum(b_rows[i][k] * kff[k] for k in range(n_u))
@@ -424,8 +368,7 @@ def _sum_two_ellipsoids_q_array(q1, q2):
     return (1.0 + 1.0 / c) * q1 + (1.0 + c) * q2
 
 
-def _rollout_lanes_array(ssm, u_flat, x0, k_fb, a, b, cfg, bmat,
-                         impl="xla"):
+def _rollout_lanes_array(ssm, u_flat, x0, k_fb, a, b, cfg, bmat):
     """ARRAY-form lane tube rollout — identical math to
     :func:`_rollout_lanes`, with the tiny-matrix algebra as batch-LAST
     (n_s, n_s, B) einsums instead of Python-scalar unrolls.
@@ -434,11 +377,9 @@ def _rollout_lanes_array(ssm, u_flat, x0, k_fb, a, b, cfg, bmat,
     per matrix op; the whole GN solve traces ~10 rollouts per Newton step,
     and at n_s >= 4 the graph grows past what XLA compiles in reasonable
     time (measured: n_s=2 seconds, n_s=4 ~13 min, n_s=6 does not finish on
-    XLA:CPU). This form keeps every array batch-last — lanes still fill the
-    (8, 128) vector registers, the leading n_s/n_s dims ride the sublanes —
-    at a constant trace size, so 4D/6D envs (cartpole, quadrotor) get the
-    lane backend too. n_s <= 2 keeps the scalar form whose throughput is
-    the measured 4.6-5.7x (bench.py); f64 equivalence of the two forms is
+    XLA:CPU). This form keeps every array batch-last at a constant trace
+    size, so 4D/6D envs (cartpole, quadrotor) get the lane backend too.
+    n_s <= 2 keeps the scalar form; f64 equivalence of the two forms is
     pinned in tests/test_sqp_lanes.py.
 
     Returns the PACKED y directly ((ny, B), the _pack_y layout).
@@ -456,7 +397,7 @@ def _rollout_lanes_array(ssm, u_flat, x0, k_fb, a, b, cfg, bmat,
 
     kff = u_flat[:n_u]
     z = jnp.concatenate([x0, kff], axis=0)                  # (d_in, B)
-    mu, var = _gp_predict_lanes(ssm, z, want_jac=False, impl=impl)
+    mu, var = _gp_predict_lanes(ssm, z, want_jac=False)
     p = a @ x0 + b @ kff + mu
     hw0 = c_safety * jnp.sqrt(var + noise)
     q = diag_q(hw0)
@@ -469,7 +410,7 @@ def _rollout_lanes_array(ssm, u_flat, x0, k_fb, a, b, cfg, bmat,
     for t in range(1, t_len):
         kff = u_flat[t * n_u:(t + 1) * n_u]
         z = jnp.concatenate([p, kff], axis=0)
-        mu, var, jac = _gp_predict_lanes(ssm, z, want_jac=True, impl=impl)
+        mu, var, jac = _gp_predict_lanes(ssm, z, want_jac=True)
         p = a @ p + b @ kff + mu
         # H = a + J_x + (b + J_u) k_fb  (onestep_reachability step 3)
         h = (
@@ -498,7 +439,7 @@ def _rollout_lanes_array(ssm, u_flat, x0, k_fb, a, b, cfg, bmat,
 
 
 def _rollout_y_lanes(ssm, u_flat, x0_rows, k_fb, a, b, cfg, bmat, r, n_u,
-                     impl="xla", want_sigma=False):
+                     want_sigma=False):
     """Packed tube(+perf) rollout, choosing the rollout form by state
     dimension (see _rollout_lanes_array docstring for the trace-size
     rationale)."""
@@ -506,17 +447,16 @@ def _rollout_y_lanes(ssm, u_flat, x0_rows, k_fb, a, b, cfg, bmat, r, n_u,
     n_s = a.shape[0]
     perf = (
         _rollout_perf_lanes(ssm, u_flat, x0_rows, a, b, cfg, r, n_u, t_len,
-                            impl=impl, want_sigma=want_sigma)
+                            want_sigma=want_sigma)
         if cfg.n_perf > 0 else None
     )
     if n_s <= 2:
         return _pack_y(
-            *_rollout_lanes(ssm, u_flat, x0_rows, k_fb, a, b, cfg, bmat,
-                            impl=impl),
+            *_rollout_lanes(ssm, u_flat, x0_rows, k_fb, a, b, cfg, bmat),
             perf=perf,
         )
     y = _rollout_lanes_array(
-        ssm, u_flat, jnp.stack(x0_rows), k_fb, a, b, cfg, bmat, impl=impl
+        ssm, u_flat, jnp.stack(x0_rows), k_fb, a, b, cfg, bmat
     )
     if perf is None:
         return y
@@ -524,7 +464,7 @@ def _rollout_y_lanes(ssm, u_flat, x0_rows, k_fb, a, b, cfg, bmat, r, n_u,
 
 
 def _rollout_perf_lanes(ssm, u_flat, x0, a, b, cfg, r, n_u, t_len,
-                        impl="xla", want_sigma=False):
+                        want_sigma=False):
     """Performance-trajectory stages, lane-major.
 
     Mirrors reachability/propagation.multi_step_propagation (reference
@@ -566,9 +506,9 @@ def _rollout_perf_lanes(ssm, u_flat, x0, a, b, cfg, r, n_u, t_len,
         ut = u_at(t)
         z = jnp.stack(p + ut)
         if want_sigma and taylor:
-            mu, var, jac = _gp_predict_lanes(ssm, z, want_jac=True, impl=impl)
+            mu, var, jac = _gp_predict_lanes(ssm, z, want_jac=True)
         else:
-            mu, var = _gp_predict_lanes(ssm, z, want_jac=False, impl=impl)
+            mu, var = _gp_predict_lanes(ssm, z, want_jac=False)
         p = [
             sum(a_rows[i][j] * p[j] for j in range(n_s))
             + sum(b_rows[i][k] * ut[k] for k in range(n_u))
@@ -869,10 +809,10 @@ def solve_safempc_lanes(
 
     # Line-search/polish FOLDING: the n_c trial step-sizes are evaluated in
     # ONE rollout over n_c*B lanes instead of n_c sequential B-lane rollouts
-    # — the candidate axis is just more vector lanes (per-lane math is
-    # identical; lane index c*B + b sees x0[b]). Sequential trials leave the
-    # MXU/VPU underfed at small B and serialize n_c dispatch chains; folding
-    # is the same layout argument as the backend itself. Per-lane LaneGPSSM
+    # — the candidate axis is just more lanes (per-lane math is identical;
+    # lane index c*B + b sees x0[b]). Sequential trials leave the device
+    # underfed at small B and serialize n_c dispatch chains; folding is the
+    # same layout argument as the backend itself. Per-lane LaneGPSSM
     # models are excluded: their support buffers are per-lane, so widening
     # the lane axis would require tiling every GP buffer n_c-fold per step.
     fold_cands = not isinstance(ssm, LaneGPSSM)

@@ -16,7 +16,7 @@ returnable input — the reference's active-learning semantics (it assumes a
 resettable/quasi-static plant that can be steered to the chosen x between
 queries).
 
-TPU-native: the same fixed-budget augmented-Lagrangian core as the SafeMPC
+Compiled: the same fixed-budget augmented-Lagrangian core as the SafeMPC
 NLP (solvers/sqp.py::solve_al_nlp) — jit-able, vmappable across restarts.
 The reference solves this with a fresh CasADi/IPOPT program per iteration.
 """

@@ -2,7 +2,7 @@
 
 The oracle is an independent C++ implementation of the framework's core
 numerics; the test suite uses it as a cross-language gold standard
-(tests/test_native_oracle.py) — the TPU-native analog of the reference's
+(tests/test_native_oracle.py) — this framework's analog of the reference's
 numpy-vs-CasADi-vs-torch equivalence testing (SURVEY.md §4.1), with the
 reference's external native layer (LAPACK, CasADi C++ — SURVEY.md §2.10)
 replaced by first-party code.

@@ -2,7 +2,7 @@
 
 Parity: reference ``visualization/utils_visualization.py::plot_ellipsoid_2D``
 and the runners' safety-bound plots (SURVEY.md §2.8). matplotlib is imported
-lazily so headless/TPU runs never pay for it.
+lazily so headless accelerator runs never pay for it.
 """
 
 from __future__ import annotations

@@ -18,8 +18,8 @@ tools/regen_goldens.CASES so gate and regeneration cannot drift):
     may take different paths in different precisions; safety + optimality
     are what parity means for a solver.
 
-The everyday implementation runs in f32 on TPU; here the comparison runs the
-CURRENT code in f64 (conftest enables x64) so deviations mean ALGORITHM
+The everyday implementation runs in f32 on the device; here the comparison runs
+the CURRENT code in f64 (conftest enables x64) so deviations mean ALGORITHM
 drift, not dtype noise. A separate f32 check guards the production dtype at
 a looser 2e-3.
 """

@@ -341,21 +341,18 @@ def test_cli_cfg4_large_sparse_short_schedule(tmp_path):
     assert np.isfinite(summary["metrics"]["model_error"])
 
 
-def test_config_backend_validation_at_construction():
+@pytest.mark.parametrize("field,bad", [
+    ("batch_backend", "lane"),
+    ("cem_backend", "fast"),
+    ("perf_trajectory", "exact"),
+])
+def test_config_backend_validation_at_construction(field, bad):
     """ADVICE r4: backend selectors are validated when the config is BUILT,
     not only inside the task dispatch that happens to read them."""
     from safe_exploration_tpu.runtime.config import ExperimentConfig
 
-    with pytest.raises(ValueError, match="batch_backend"):
-        ExperimentConfig(name="bad", batch_backend="lane")
-    with pytest.raises(ValueError, match="cem_backend"):
-        ExperimentConfig(name="bad", cem_backend="fast")
-    with pytest.raises(ValueError, match="perf_trajectory"):
-        ExperimentConfig(name="bad", perf_trajectory="exact")
-    # the fused-scorer selector too: a typo'd value would silently resolve
-    # to the XLA path in cem_plan_lanes and mislabel the dispatch A/B
-    with pytest.raises(ValueError, match="cem_gp_impl"):
-        ExperimentConfig(name="bad", cem_gp_impl="fuse")
+    with pytest.raises(ValueError, match=field):
+        ExperimentConfig(name="bad", **{field: bad})
 
 
 def test_cartpole_sqp_config_wires_joint_trajectories():
@@ -410,10 +407,10 @@ def test_orbax_backend_roundtrips_sharded_state(tmp_path):
 
 
 def test_matmul_precision_policy_active():
-    """Importing the package must pin f32-accurate matmuls: TPU's bf16 MXU
-    default corrupts posterior variances through the solve-free quadratic
-    forms and inflates safety tubes (observed feasibility 1.0 -> 0.05 on the
-    256-lane batch config before this policy)."""
+    """Importing the package must pin f32-accurate matmuls: a reduced-
+    precision default (bf16 passes, or TF32 on GPU tensor cores) corrupts
+    posterior variances through the solve-free quadratic forms and inflates
+    safety tubes."""
     import jax
 
     import safe_exploration_tpu  # noqa: F401  (policy applies at import)

@@ -1,8 +1,9 @@
 """Sharded large-N sparse GP vs the single-device oracle (8-device CPU mesh).
 
 SURVEY.md §2.9: the reference has no distributed path; these tests pin the
-TPU-native deliverable — data-axis sharding of the SGPR contractions with one
-psum — to be numerically identical to models/sparse_gp.py.
+framework's multi-device deliverable — data-axis sharding of the SGPR
+contractions with one psum — to be numerically identical to
+models/sparse_gp.py.
 """
 
 import jax

@@ -194,8 +194,8 @@ def test_f32_refit_stable_at_low_noise_scale():
     """REGRESSION (round 3): the whitened-form refit must survive f32 at
     BASELINE-cfg-4-like conditioning. Forming Sigma = Kuu + Kuf Kuf^T /
     sigma_n^2 directly and factoring it NaN'd every factor for low-noise
-    N>=2k pendulum-residual data (cond(Sigma) ~ 1e8+; observed CPU-f32 AND
-    TPU) — the first half of this test pins that the scenario really is past
+    N>=2k pendulum-residual data (cond(Sigma) ~ 1e8+; observed in CPU f32)
+    — the first half of this test pins that the scenario really is past
     the naive form's cliff, the second that _factors_from_whitened survives
     it with a usable posterior."""
     import jax.scipy.linalg  # noqa: F401  (solve_triangular used below)

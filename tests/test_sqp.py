@@ -189,8 +189,8 @@ def test_gn_handles_exploration_objective(setup):
 def test_linearized_linesearch_solves_easy_instances(setup):
     """The linearized line-search knob (throughput mode: candidates scored on
     y + Jy du instead of re-rolled tubes) must still converge clearly-feasible
-    instances; measured on TPU it trades ~4pp cold-start feasibility for +11%
-    throughput — default stays "exact"."""
+    instances; it costs ~4pp cold-start feasibility — default stays
+    "exact"."""
     from safe_exploration_tpu.solvers.sqp import SqpConfig, make_sqp_planner
 
     exp, ssm, key = setup
